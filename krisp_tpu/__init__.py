@@ -1,8 +1,8 @@
-"""krisp_tpu: a TPU-native k-mer set-analysis engine for CRISPR/PCR
+"""krisp_tpu: an accelerator-native k-mer set-analysis engine for CRISPR/PCR
 diagnostic assay design.
 
 Re-implements the capabilities of grunwaldlab/krisp (kstream, krisp_fasta,
-krisp_vcf) as a JAX/XLA/Pallas pipeline: 2-bit/4-bit packed k-mer keys,
+krisp_vcf) as a JAX/XLA pipeline: 2-bit/4-bit packed k-mer keys,
 on-device sort, segment-reduction intersection, vectorized variant
 classification, and a self-contained thermodynamic primer-design engine.
 """

@@ -1,4 +1,4 @@
-"""`krisp_fasta` command-line front-end (TPU-native engine underneath).
+"""`krisp_fasta` command-line front-end (device engine underneath).
 
 Flag-surface parity with the reference CLI
 (/root/reference/src/krisp/krisp_fasta/krisp_fasta.py:126-298), including the
@@ -135,6 +135,8 @@ def main(argv=None):
         with METRICS.stage("primer3", items=len(groups)):
             if args.cores > 1 and len(groups) > 1:
                 import multiprocessing as mp
+
+                from ..runtime import cpu_only_children
                 ctx = mp.get_context("spawn")  # fork after JAX init deadlocks
                 tasks = []
                 for group in groups:
@@ -142,7 +144,9 @@ def main(argv=None):
                     tasks.append(("".join(consensus.values()),
                                   len(consensus["forward"]),
                                   len(consensus["diagnostic"])))
-                with ctx.Pool(min(args.cores, len(groups))) as pool:
+                with cpu_only_children():
+                    pool = ctx.Pool(min(args.cores, len(groups)))
+                with pool:
                     results = pool.starmap(
                         _design_job, [(t, p3_args) for t in tasks])
                 for group, p3 in zip(groups, results):

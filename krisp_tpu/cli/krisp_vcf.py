@@ -77,7 +77,7 @@ def parse_args(argv):
     p.add_argument("--engine", type=str, choices=["auto", "host", "device"],
                    default="auto",
                    help="Variant classification engine: exact host path or "
-                        "TPU-batched kernel with on-demand exact "
+                        "device-batched kernel with on-demand exact "
                         "rehydration; 'auto' picks the device path for "
                         "large indexed VCFs. (default: %(default)s)")
     p.add_argument("--devices", type=int, default=None, metavar="INT",
@@ -181,9 +181,9 @@ def run_all(args):
     from ..vcf.classify import parse_group_data
     from ..vcf.report import ResultWriter, make_chunks, report_diag_region
 
-    # persistent compile cache + JAX_PLATFORMS override for the device
-    # engine (the other CLIs do this too; without it a cold device scan
-    # pays the full TPU compile every invocation)
+    # persistent compile cache for the device engine (the other CLIs do
+    # this too; without it a cold device scan pays the full compile every
+    # invocation)
     _setup_runtime()
 
     global logger
@@ -276,8 +276,12 @@ def _scan_chunks(args, chunks, vcf_source, groups, reference, group_names,
         multicore = False
 
     if multicore:
+        from ..runtime import cpu_only_children
+
+        # workers run the host engine: none may open the accelerator
         ctx = mp.get_context("spawn")
-        manager = ctx.Manager()
+        with cpu_only_children():
+            manager = ctx.Manager()
         failure_event = manager.Event()
         result_queue = manager.Queue()
         log_queue = manager.Queue()
@@ -304,7 +308,8 @@ def _scan_chunks(args, chunks, vcf_source, groups, reference, group_names,
                         args=(result_queue, log_queue, failure_event,
                               vcf_source, chunk, groups, reference,
                               want_alignment, search_args))
-                    proc.start()
+                    with cpu_only_children():
+                        proc.start()
                     active.append(proc)
                 drain_logs()
                 try:

@@ -7,7 +7,7 @@ Feature parity notes (reference: grunwaldlab/krisp):
     Bio.Data.IUPACData; re-derived here from first principles since the table
     is a fixed standard).
 
-TPU-native design: bases are encoded as small integers whose numeric order
+Device-native design: bases are encoded as small integers whose numeric order
 equals the ASCII byte order of the uppercase letters.  Packed keys compared as
 unsigned integers therefore reproduce ``LC_ALL=C sort`` exactly, which is the
 collation the reference relies on for its sorted k-mer tables.

@@ -287,9 +287,13 @@ class KStream:
             out = self._transform(seqs)
         else:
             def parallel_stream():
+                from .runtime import cpu_only_children
+
                 # spawn: fork is unsafe once JAX (multithreaded) loaded
                 ctx = multiprocessing.get_context("spawn")
-                with ctx.Pool(self.parallel) as pool:
+                with cpu_only_children():
+                    pool = ctx.Pool(self.parallel)
+                with pool:
                     for chunk in pool.imap(self._one_seq, seqs, chunksize=4):
                         yield from chunk
             out = parallel_stream()

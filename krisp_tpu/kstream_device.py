@@ -144,15 +144,16 @@ def run_device_kstream(path, plan: DevicePlan, out_stream):
     padded[:buf.size] = buf
 
     bits = 2
-    # HBM guard: the one-shot program materializes the full window table
-    # (fwd+rc rows x key words + counts, double-buffered through the LSD
-    # sort).  Past the budget, switch to the segmented path: device-sorted
-    # unique runs spilled to disk, merged on the host (the external-sort
-    # architecture with device-accelerated run generation).
-    import os as _os
+    # Device-memory guard: the one-shot program materializes the full
+    # window table (fwd+rc rows x key words + counts, double-buffered
+    # through the LSD sort).  Past the budget, switch to the segmented
+    # path: device-sorted unique runs spilled to disk, merged on the host
+    # (the external-sort architecture with device-accelerated run
+    # generation).
+    from .engine.pipeline import fused_budget
     _w = (2 * k + 31) // 32
     est_bytes = int(padded.size) * 2 * (_w + 1) * 4 * 3
-    budget = int(_os.environ.get("KRISP_TPU_HBM_BUDGET", 8 << 30))
+    budget = fused_budget()
 
     from .parallel.distributed import mesh_from_env
     mesh = mesh_from_env()
@@ -256,8 +257,8 @@ def _build_stage(k, mode, bits, omit_soft, start_limit=None):
     Count embedding: valid keys occupy the top bits*k bits of the word
     row, so the last word keeps ``spare`` zero low bits.  Small
     multiplicities ride there for free, shrinking the device->host pull
-    (the measured bottleneck of this path, BASELINE.md) from W+1 to W u32
-    rows per unique k-mer.  The all-ones value is an overflow marker:
+    from W+1 to W u32 rows per unique k-mer.  The all-ones value is an
+    overflow marker:
     those rows' exact counts come from a second (rare) pull of the count
     row."""
     import jax

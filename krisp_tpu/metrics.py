@@ -41,6 +41,12 @@ class Metrics:
             stat.calls += 1
             stat.items += items
 
+    def count(self, name: str, items: int = 1):
+        """Count an event that takes no time of its own (e.g. a retry)."""
+        stat = self.stages.setdefault(name, StageStat())
+        stat.calls += 1
+        stat.items += items
+
     def report(self, stream=None):
         stream = stream or sys.stderr
         width = max([len(n) for n in self.stages] + [5])

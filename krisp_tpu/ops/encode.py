@@ -222,11 +222,10 @@ def window_keys_tree(ascii_u8, code_table, valid_table, comp_table,
                      left: int, mid: int, right: int, n_files: int):
     """window_keys_bits for the 2-bit path via log-tree packing.
 
-    The per-base formulation (pack_windows_at / the Pallas pack kernel)
-    does L shift-or passes per strand; doubling ladders over the code
-    buffer pack 2^s bases per element, so each layout word composes from
-    O(log) slices of the ladders — ~5x fewer vector passes at spacer
-    geometry (measured on v5e, tools/probe_tree_pack.py).  The reverse
+    The per-base formulation (pack_windows_at) does L shift-or passes per
+    strand; doubling ladders over the code buffer pack 2^s bases per
+    element, so each layout word composes from O(log) slices of the
+    ladders — fewer vector passes at spacer geometry.  The reverse
     complement reuses a ladder over the flipped complement buffer: the
     window-i slice of that ladder is a flip of a statically-offset slice.
     Bit-identical to window_keys_bits (tests/test_encode.py).

@@ -3,7 +3,7 @@
 The reference's concurrency story is single-node multiprocessing over files
 and byte-range file shards (/root/reference/src/krisp/krisp_fasta/
 krisp_fasta.py:86-123, shared.py:133-207, intersectAmplicons.py:131-187 — the
-latter disabled for nondeterminism).  The TPU-native equivalent:
+latter disabled for nondeterminism).  The device-mesh equivalent:
 
   - **sequence parallelism**: each device owns a contiguous slice of the
     genome buffer; a ppermute halo exchange ships the (L-1)-base prefix of
@@ -37,6 +37,7 @@ from jax.sharding import Mesh, PartitionSpec as P
 from jax import shard_map
 
 from .. import dna
+from ..metrics import GLOBAL as METRICS
 from ..ops.encode import encode_ascii, window_validity, pack_windows, sort_perm, num_words
 from ..ops.sort import sort_keys, unique_counts
 
@@ -360,6 +361,7 @@ def sharded_intersect_pipeline(mesh: Mesh, stacked: np.ndarray, left: int,
         tails = packed[-1].reshape(n_shards, cap)
         overflow = int(tails[0, 1])
         if overflow > 0:
+            METRICS.count("exchange_retry")
             needed = int(tails[0, 2])
             exch_cap = -(-(needed + 64) // 64) * 64
             continue

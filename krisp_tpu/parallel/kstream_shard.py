@@ -28,6 +28,7 @@ from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
 from .. import dna
+from ..metrics import GLOBAL as METRICS
 from ..ops.encode import window_keys_bits
 from ..ops.intersect import SENTINEL, _run_heads, _seg_last, dedup_sorted
 from ..ops.sort import lsd_sort
@@ -147,6 +148,7 @@ def sharded_kstream_table(mesh: Mesh, buf: np.ndarray, k: int, mode: str,
         words_d, cnts_d, n_uni_d, overflow_d = step(padded)
         if int(overflow_d) == 0:
             break
+        METRICS.count("exchange_retry")
         cap *= 2
 
     n_uni = np.asarray(n_uni_d)          # (n,) unique rows per shard

@@ -7,8 +7,6 @@ tables never materialize on device at once, yet the survivor set, its
 order, and the rendered bytes are identical to the one-shot program.
 """
 
-import glob
-
 import numpy as np
 import pytest
 
@@ -18,22 +16,19 @@ from krisp_tpu.engine.bigscale import (_prefix_ranges, _range_bounds,
                                        partitioned_global_intersect)
 from krisp_tpu.engine.pipeline import KmerGeometry, run_pipeline
 
-DATA = "/root/reference/test_data/krisp_fasta"
-INGROUP = sorted(glob.glob(f"{DATA}/ingroup*.fasta.gz"))
-OUTGROUP = sorted(glob.glob(f"{DATA}/outgroup*.fasta.gz"))
-
-
-def _fused_csv(geom):
-    return [render.render_csv(g) for g in run_pipeline(INGROUP, OUTGROUP,
+def _fused_csv(geom, ingroup, outgroup):
+    return [render.render_csv(g) for g in run_pipeline(ingroup, outgroup,
                                                        geom)]
 
 
-def test_many_passes_match_fused(tmp_path, monkeypatch):
+def test_many_passes_match_fused(tmp_path, monkeypatch, planted_fasta):
     """A row budget far below the table size forces dozens of ranges;
     every range runs its own device pass, and the concatenated survivors
     must render byte-identically to the single fused program."""
+    INGROUP, OUTGROUP, expected = planted_fasta()
     geom = KmerGeometry(25, 1, 2)
-    fused = _fused_csv(geom)
+    fused = _fused_csv(geom, INGROUP, OUTGROUP)
+    assert {tuple(r.split(",")) for r in fused} == expected
     monkeypatch.setenv("KRISP_TPU_GLOBAL_ROWS", "20000")
     got = [render.render_csv(g)
            for g in run_pipeline(INGROUP, OUTGROUP, geom,
@@ -41,13 +36,15 @@ def test_many_passes_match_fused(tmp_path, monkeypatch):
     assert got == fused
 
 
-def test_chunked_extraction_plus_partitioned_global(tmp_path, monkeypatch):
+def test_chunked_extraction_plus_partitioned_global(tmp_path, monkeypatch,
+                                                    planted_fasta):
     """Both axes bounded at once: tiny extraction chunks (many sorted
     sub-runs per genome) AND a tiny global row budget (many ranges)."""
     from krisp_tpu.engine import pipeline as P
 
+    INGROUP, OUTGROUP, _ = planted_fasta()
     geom = KmerGeometry(25, 1, 2)
-    fused = _fused_csv(geom)
+    fused = _fused_csv(geom, INGROUP, OUTGROUP)
     orig = P._cached_parts
 
     def chunked(paths, geom, bits, omit_soft, workdir, layout):

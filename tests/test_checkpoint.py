@@ -1,20 +1,16 @@
 """Checkpoint/resume: cached tables must reproduce the fused-path result."""
 
-import glob
-
 from krisp_tpu.engine.pipeline import KmerGeometry, run_pipeline
 from krisp_tpu.engine import render
 from krisp_tpu.engine.checkpoint import TableCache
 
-DATA = "/root/reference/test_data/krisp_fasta"
-INGROUP = sorted(glob.glob(f"{DATA}/ingroup*.fasta.gz"))
-OUTGROUP = sorted(glob.glob(f"{DATA}/outgroup*.fasta.gz"))
 
-
-def test_workdir_checkpoint_roundtrip(tmp_path):
+def test_workdir_checkpoint_roundtrip(tmp_path, planted_fasta):
+    INGROUP, OUTGROUP, expected = planted_fasta()
     geom = KmerGeometry(25, 1, 2)
     fused = [render.render_csv(g)
              for g in run_pipeline(INGROUP, OUTGROUP, geom)]
+    assert {tuple(r.split(",")) for r in fused} == expected
     # first run populates the cache
     first = [render.render_csv(g)
              for g in run_pipeline(INGROUP, OUTGROUP, geom,
@@ -29,11 +25,13 @@ def test_workdir_checkpoint_roundtrip(tmp_path):
     assert second == fused
 
 
-def test_chunked_out_of_core_matches_fused(tmp_path, monkeypatch):
+def test_chunked_out_of_core_matches_fused(tmp_path, monkeypatch,
+                                           planted_fasta):
     """Tiny chunk size forces many device chunks per genome; results must
     match the one-shot fused path exactly."""
     from krisp_tpu.engine import pipeline as P
 
+    INGROUP, OUTGROUP, _ = planted_fasta()
     geom = KmerGeometry(25, 1, 2)
     fused = [render.render_csv(g)
              for g in run_pipeline(INGROUP, OUTGROUP, geom)]

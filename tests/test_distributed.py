@@ -63,48 +63,62 @@ def test_sharded_matches_single_chip(n_dev):
     assert got == want
 
 
-DATA = "/root/reference/test_data/krisp_fasta"
+SPACER_ARGS = ["--conserved-left", "25", "--conserved-right", "2",
+               "--diagnostic", "1"]
+AMPLICON_ARGS = ["--conserved", "30", "--amplicon", "100"]
+
+
+def _cli_outputs(tmp_path, ingroup, outgroup, geom_args, n_dev):
+    from krisp_tpu.cli.krisp_fasta import main as krisp_fasta_main
+
+    csv = tmp_path / f"out{n_dev}.csv"
+    align = tmp_path / f"out{n_dev}.align.txt"
+    krisp_fasta_main(ingroup + ["--outgroup"] + outgroup + geom_args +
+                     ["--devices", str(n_dev),
+                      "--out_csv", str(csv), "--out_align", str(align)])
+    return csv.read_text(), align.read_text()
+
+
+def _rows(csv_text):
+    return {tuple(line.split(",")[:3])
+            for line in csv_text.splitlines()[1:]}
+
+
+@pytest.fixture(scope="module")
+def spacer_single(planted_fasta, tmp_path_factory):
+    ingroup, outgroup, expected = planted_fasta((25, 1, 2))
+    out = _cli_outputs(tmp_path_factory.mktemp("single"), ingroup, outgroup,
+                       SPACER_ARGS, 1)
+    assert _rows(out[0]) == expected
+    return ingroup, outgroup, out
+
+
+@pytest.fixture(scope="module")
+def amplicon_single(planted_fasta, tmp_path_factory):
+    ingroup, outgroup, expected = planted_fasta((30, 40, 30))
+    out = _cli_outputs(tmp_path_factory.mktemp("single"), ingroup, outgroup,
+                       AMPLICON_ARGS, 1)
+    assert _rows(out[0]) == expected
+    return ingroup, outgroup, out
 
 
 @pytest.mark.parametrize("n_dev", [2, 3, 4, 8])
-def test_full_pipeline_sharded_cli_bytes(n_dev, tmp_path):
+def test_full_pipeline_sharded_cli_bytes(n_dev, tmp_path, spacer_single):
     """The product CLI, sharded over N devices, emits byte-identical CSV and
-    alignment output to the single-device goldens (VERDICT r1 item 1)."""
-    import glob
-    from pathlib import Path
-    from krisp_tpu.cli.krisp_fasta import main as krisp_fasta_main
-
-    ingroup = sorted(glob.glob(f"{DATA}/ingroup*.fasta.gz"))
-    outgroup = sorted(glob.glob(f"{DATA}/outgroup*.fasta.gz"))
-    gold = Path(__file__).parent / "golden"
-    csv = tmp_path / "out.csv"
-    align = tmp_path / "out.align.txt"
-    krisp_fasta_main(ingroup + ["--outgroup"] + outgroup +
-                     ["--conserved-left", "25", "--conserved-right", "2",
-                      "--diagnostic", "1", "--devices", str(n_dev),
-                      "--out_csv", str(csv), "--out_align", str(align)])
-    assert csv.read_text() == (gold / "spacer_25_1_2.csv").read_text()
-    assert align.read_text() == (gold / "spacer_25_1_2.align.txt").read_text()
+    alignment output to the single-device run (VERDICT r1 item 1), whose
+    rows are the planted diagnostic sites."""
+    ingroup, outgroup, single = spacer_single
+    assert _cli_outputs(tmp_path, ingroup, outgroup, SPACER_ARGS,
+                        n_dev) == single
 
 
 @pytest.mark.parametrize("n_dev", [2, 6, 8])
-def test_full_pipeline_sharded_amplicon_mode(n_dev, tmp_path):
-    """Multi-word-key (L=100) geometry through the mesh: same goldens."""
-    import glob
-    from pathlib import Path
-    from krisp_tpu.cli.krisp_fasta import main as krisp_fasta_main
-
-    ingroup = sorted(glob.glob(f"{DATA}/ingroup*.fasta.gz"))
-    outgroup = sorted(glob.glob(f"{DATA}/outgroup*.fasta.gz"))
-    gold = Path(__file__).parent / "golden"
-    csv = tmp_path / "out.csv"
-    align = tmp_path / "out.align.txt"
-    krisp_fasta_main(ingroup + ["--outgroup"] + outgroup +
-                     ["--conserved", "30", "--amplicon", "100",
-                      "--devices", str(n_dev),
-                      "--out_csv", str(csv), "--out_align", str(align)])
-    assert csv.read_text() == (gold / "amplicon_100.csv").read_text()
-    assert align.read_text() == (gold / "amplicon_100.align.txt").read_text()
+def test_full_pipeline_sharded_amplicon_mode(n_dev, tmp_path,
+                                             amplicon_single):
+    """Multi-word-key (L=100) geometry through the mesh: same bytes."""
+    ingroup, outgroup, single = amplicon_single
+    assert _cli_outputs(tmp_path, ingroup, outgroup, AMPLICON_ARGS,
+                        n_dev) == single
 
 
 def test_full_pipeline_sharded_omit_soft(tmp_path):

@@ -8,6 +8,8 @@ import sys
 import numpy as np
 import pytest
 
+from conftest import REPO, ref_pythonpath
+
 
 def synth_genomes(tmp_path, rng, n_files=4, n_seqs=3, size=400):
     paths = []
@@ -61,15 +63,15 @@ FLAG_SETS += [
 @pytest.mark.parametrize("seed,flags", [(21, FLAG_SETS[0]), (22, FLAG_SETS[1]),
                                         (23, FLAG_SETS[2]), (24, FLAG_SETS[3]),
                                         (25, FLAG_SETS[4]), (26, FLAG_SETS[5])])
-def test_fuzz_fasta_parity(tmp_path, seed, flags):
+def test_fuzz_fasta_parity(tmp_path, seed, flags, reference_dir):
     rng = np.random.default_rng(seed)
     paths = synth_genomes(tmp_path, rng)
     ref_csv, ref_align = run_cli(
         "krisp.krisp_fasta.krisp_fasta",
-        "/root/repo/tools/refstubs:/root/reference/src:/root/repo",
+        ref_pythonpath(reference_dir),
         paths, flags, str(tmp_path), "ref")
     our_csv, our_align = run_cli(
-        "krisp_tpu.cli.krisp_fasta", "/root/repo",
+        "krisp_tpu.cli.krisp_fasta", str(REPO),
         paths, flags, str(tmp_path), "ours")
     assert our_csv == ref_csv
     assert our_align == ref_align

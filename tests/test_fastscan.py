@@ -7,6 +7,7 @@ CSV/alignment output and the status-line statistics (VERDICT r1 item 2).
 
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -17,9 +18,8 @@ from krisp_tpu.vcf.parser import VcfOffsetIndex
 
 from test_vcf_fuzz import synth_fuzz_inputs, synth_dense_inputs
 
-META = "/root/reference/test_data/krisp_vcf/metadata.csv"
-VCF = "/root/reference/test_data/krisp_vcf/variants.vcf.gz"
-REF_FASTA = "tests/data/test_reference.fasta.gz"
+REPO = Path(__file__).resolve().parent.parent
+GROUPS = ["G1", "G2", "G3"]
 
 KWARGS = dict(min_samples=3, min_samp_prop=0.9, min_reads=10,
               min_geno_qual=40, min_var_qual=10, min_freq=0.1,
@@ -28,15 +28,15 @@ KWARGS = dict(min_samples=3, min_samp_prop=0.9, min_reads=10,
 
 
 @pytest.fixture(scope="module")
-def bundled():
-    idx = VcfOffsetIndex(VCF)
+def bundled(synth_vcf):
+    meta, ref, vcf = synth_vcf
+    idx = VcfOffsetIndex(vcf)
     col = idx.columnar()
     if col is None:
         idx.cleanup()
         pytest.skip("native VCF tokenizer unavailable")
-    groups = parse_group_data(META, groups=["NA1", "NA2", "EU1"],
-                              min_samples=3)
-    reference = parse_reference(REF_FASTA)
+    groups = parse_group_data(meta, groups=GROUPS, min_samples=3)
+    reference = parse_reference(ref)
     yield idx, col, groups, reference
     idx.cleanup()
 
@@ -102,7 +102,7 @@ def _run_cli(meta, ref, vcf, out_dir, tag, engine):
          "--vcf", vcf, "--groups", "EU1", "NA1", "--min_samples", "3",
          "--engine", engine, "--out_csv", csv, "--out_align", align],
         capture_output=True, text=True, timeout=600,
-        env={"PYTHONHASHSEED": "0", "PYTHONPATH": "/root/repo",
+        env={"PYTHONHASHSEED": "0", "PYTHONPATH": str(REPO),
              "PATH": "/usr/bin:/bin", "COLUMNS": "80",
              "JAX_PLATFORMS": "cpu"})
     assert proc.returncode == 0, proc.stderr[-2000:]
@@ -191,11 +191,11 @@ def test_engine_auto_resolution(bundled):
 def test_cli_engine_default_is_auto():
     from krisp_tpu.cli.krisp_vcf import parse_args
 
-    args = parse_args([META, REF_FASTA, "--vcf", VCF])
+    args = parse_args(["meta.csv", "ref.fasta", "--vcf", "vars.vcf.gz"])
     assert args.engine == "auto"
 
 
-def test_uses_device_fast_path(bundled):
+def test_uses_device_fast_path(bundled, synth_vcf):
     """The multicore driver consults the same predicate that gates the
     device scan, so device-engine runs never fork per-chunk workers."""
     from krisp_tpu.vcf.report import uses_device_fast_path
@@ -206,7 +206,7 @@ def test_uses_device_fast_path(bundled):
     assert not uses_device_fast_path(idx, {"engine": "auto"})  # small file
     assert not uses_device_fast_path(idx, {"engine": "device",
                                            "min_reads": 0})
-    assert not uses_device_fast_path(VCF, {"engine": "device"})
+    assert not uses_device_fast_path(synth_vcf[2], {"engine": "device"})
 
 
 def test_classify_batches_share_compiled_shapes(bundled):
@@ -228,7 +228,7 @@ def test_classify_batches_share_compiled_shapes(bundled):
     # the numpy mirror (no compiled shapes at all), which this test is
     # specifically not about.  The single-accelerator path selects the
     # bits-upload/small-pull kernel for this file (A <= 15).
-    with mock.patch("jax.default_backend", return_value="tpu"):
+    with mock.patch("jax.default_backend", return_value="gpu"):
         r1 = _classify_columnar(col, np.arange(300, dtype=np.int64), names,
                                 groups, kw)
         n1 = classify_bits_packed_small._cache_size()
@@ -261,7 +261,7 @@ def test_classify_routes_to_numpy_mirror_on_cpu(bundled):
               min_map_qual=40)
     names = list(groups.keys())
     rows = np.arange(300, dtype=np.int64)
-    with mock.patch("jax.default_backend", return_value="tpu"):
+    with mock.patch("jax.default_backend", return_value="gpu"):
         want = _classify_columnar(col, rows, names, groups, kw)
     base = (classify_batch_packed._cache_size(),
             classify_bits_packed_small._cache_size())
@@ -307,3 +307,23 @@ def test_small_pull_ac_row_matches_kernel(bundled):
         col.dp[rows], col.gq[rows], col.ad[rows], col.n_alleles[rows],
         gid, G, 10, 40, 0.1)
     assert np.array_equal(ac_rows, ac_full)
+
+
+def test_classify_route_follows_backend_and_width(bundled):
+    """The scan's kernel choice: the mesh when there is one, the numpy
+    mirror without an accelerator, the small-pull kernel while alleles and
+    samples fit its int16 layout, the full layout past that."""
+    import types
+    from unittest import mock
+
+    from krisp_tpu.vcf.fastscan import classify_route
+
+    _, col, _, _ = bundled
+    wide = types.SimpleNamespace(ad=np.zeros((1, 1, 16), np.int32),
+                                 samples=col.samples)
+    with mock.patch("jax.default_backend", return_value="cpu"):
+        assert classify_route(col, None) == "numpy"
+        assert classify_route(col, object()) == "sharded"
+    with mock.patch("jax.default_backend", return_value="gpu"):
+        assert classify_route(col, None) == "small"
+        assert classify_route(wide, None) == "full"

@@ -5,12 +5,19 @@ test data — see tests/golden/README.md)."""
 import glob
 from pathlib import Path
 
+import pytest
+
 from krisp_tpu.cli.krisp_fasta import main as krisp_fasta_main
 
-DATA = "/root/reference/test_data/krisp_fasta"
 GOLD = Path(__file__).parent / "golden"
-INGROUP = sorted(glob.glob(f"{DATA}/ingroup*.fasta.gz"))
-OUTGROUP = sorted(glob.glob(f"{DATA}/outgroup*.fasta.gz"))
+
+
+@pytest.fixture(scope="module")
+def genomes(reference_dir):
+    """The reference's bundled test genomes: (ingroup, outgroup) paths."""
+    data = reference_dir / "test_data" / "krisp_fasta"
+    return (sorted(glob.glob(f"{data}/ingroup*.fasta.gz")),
+            sorted(glob.glob(f"{data}/outgroup*.fasta.gz")))
 
 
 def run_cli(tmp_path, args):
@@ -20,7 +27,8 @@ def run_cli(tmp_path, args):
     return csv.read_text(), align.read_text()
 
 
-def test_spacer_25_1_2(tmp_path):
+def test_spacer_25_1_2(tmp_path, genomes):
+    INGROUP, OUTGROUP = genomes
     csv, align = run_cli(tmp_path, INGROUP + ["--outgroup"] + OUTGROUP +
                          ["--conserved-left", "25", "--conserved-right", "2",
                           "--diagnostic", "1"])
@@ -28,28 +36,32 @@ def test_spacer_25_1_2(tmp_path):
     assert align == (GOLD / "spacer_25_1_2.align.txt").read_text()
 
 
-def test_spacer_25_1_2_dot(tmp_path):
+def test_spacer_25_1_2_dot(tmp_path, genomes):
+    INGROUP, OUTGROUP = genomes
     _, align = run_cli(tmp_path, INGROUP + ["--outgroup"] + OUTGROUP +
                        ["--conserved-left", "25", "--conserved-right", "2",
                         "--diagnostic", "1", "--dot-alignment"])
     assert align == (GOLD / "spacer_25_1_2_dot.align.txt").read_text()
 
 
-def test_conserved_60mers(tmp_path):
+def test_conserved_60mers(tmp_path, genomes):
+    INGROUP, OUTGROUP = genomes
     csv, align = run_cli(tmp_path, INGROUP + OUTGROUP +
                          ["--conserved", "30", "--diagnostic", "0"])
     assert csv == (GOLD / "conserved_60.csv").read_text()
     assert align == (GOLD / "conserved_60.align.txt").read_text()
 
 
-def test_amplicon_100(tmp_path):
+def test_amplicon_100(tmp_path, genomes):
+    INGROUP, OUTGROUP = genomes
     csv, align = run_cli(tmp_path, INGROUP + ["--outgroup"] + OUTGROUP +
                          ["--conserved", "30", "--amplicon", "100"])
     assert csv == (GOLD / "amplicon_100.csv").read_text()
     assert align == (GOLD / "amplicon_100.align.txt").read_text()
 
 
-def test_amplicon_primer3(tmp_path):
+def test_amplicon_primer3(tmp_path, genomes):
+    INGROUP, OUTGROUP = genomes
     """The README's published amplicon+primer3 workload
     (/root/reference/README.md:200-232): 2 revcomp-twin regions, and —
     since r5's selection resolution — the PUBLISHED primer pair with the
@@ -80,7 +92,8 @@ def test_amplicon_primer3(tmp_path):
         assert v in pair, (v, pair)
 
 
-def test_amplicon_primer3_cores(tmp_path):
+def test_amplicon_primer3_cores(tmp_path, genomes):
+    INGROUP, OUTGROUP = genomes
     csv1, _ = run_cli(tmp_path, INGROUP + ["--outgroup"] + OUTGROUP +
                       ["--conserved", "30", "--amplicon", "100", "--primer3"])
     csv2, _ = run_cli(tmp_path, INGROUP + ["--outgroup"] + OUTGROUP +

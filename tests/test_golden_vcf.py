@@ -15,14 +15,26 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
+from conftest import REPO
+
 GOLD = Path(__file__).parent / "golden"
 DATA = Path(__file__).parent / "data"
-META = "/root/reference/test_data/krisp_vcf/metadata.csv"
-VCF = "/root/reference/test_data/krisp_vcf/variants.vcf.gz"
 REF_FASTA = str(DATA / "test_reference.fasta.gz")
 
 
-def test_vcf_golden_parity(tmp_path):
+@pytest.fixture(scope="module")
+def bundled(reference_dir):
+    """The reference's bundled cohort (metadata.csv, variants.vcf.gz), the
+    input of every golden here (tests/data holds a reference FASTA
+    synthesized to match it, tools/make_test_reference.py)."""
+    data = reference_dir / "test_data" / "krisp_vcf"
+    return str(data / "metadata.csv"), str(data / "variants.vcf.gz")
+
+
+def test_vcf_golden_parity(tmp_path, bundled):
+    META, VCF = bundled
     csv = tmp_path / "out.csv"
     align = tmp_path / "out.align.txt"
     proc = subprocess.run(
@@ -31,7 +43,7 @@ def test_vcf_golden_parity(tmp_path):
          "--pos", "150000", "260000",
          "--out_csv", str(csv), "--out_align", str(align)],
         capture_output=True, text=True, timeout=600,
-        env={"PYTHONHASHSEED": "0", "PYTHONPATH": "/root/repo",
+        env={"PYTHONHASHSEED": "0", "PYTHONPATH": str(REPO),
              "PATH": "/usr/bin:/bin", "COLUMNS": "80"})
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert csv.read_text() == (GOLD / "vcf_pos150k_260k.csv").read_text()
@@ -40,19 +52,21 @@ def test_vcf_golden_parity(tmp_path):
     assert "Undiagnostic" in proc.stderr
 
 
-def test_vcf_multicore_matches_serial(tmp_path):
+def test_vcf_multicore_matches_serial(tmp_path, synth_vcf):
     """--cores N must produce the same CSV result set as serial (worker
     logs routed through the parent; failure propagation wired)."""
+    meta, ref, vcf = synth_vcf
+
     def run(cores):
         csv = tmp_path / f"out{cores}.csv"
         log = tmp_path / f"log{cores}.txt"
         proc = subprocess.run(
-            [sys.executable, "-m", "krisp_tpu.cli.krisp_vcf", META, REF_FASTA,
-             "--vcf", VCF, "--groups", "NA1", "NA2", "EU1",
+            [sys.executable, "-m", "krisp_tpu.cli.krisp_vcf", meta, ref,
+             "--vcf", vcf, "--groups", "G1", "G2", "G3", "--engine", "host",
              "--pos", "150000", "220000", "--cores", str(cores),
              "--log", str(log), "--out_csv", str(csv)],
             capture_output=True, text=True, timeout=600,
-            env={"PYTHONHASHSEED": "0", "PYTHONPATH": "/root/repo",
+            env={"PYTHONHASHSEED": "0", "PYTHONPATH": str(REPO),
                  "PATH": "/usr/bin:/bin", "COLUMNS": "80"})
         assert proc.returncode == 0, proc.stderr[-2000:]
         lines = csv.read_text().splitlines()
@@ -65,19 +79,21 @@ def test_vcf_multicore_matches_serial(tmp_path):
     assert "Starting scan of chunk" in log_text  # worker logs reached parent
 
 
-def test_vcf_device_engine_matches_host(tmp_path):
-    """--engine device (TPU-batched classification) must reproduce the host
-    path byte-for-byte, including rendered alignments."""
+def test_vcf_device_engine_matches_host(tmp_path, synth_vcf):
+    """--engine device (device-batched classification) must reproduce the
+    host path byte-for-byte, including rendered alignments."""
+    meta, ref, vcf = synth_vcf
+
     def run(engine):
         csv = tmp_path / f"{engine}.csv"
         align = tmp_path / f"{engine}.align.txt"
         proc = subprocess.run(
-            [sys.executable, "-m", "krisp_tpu.cli.krisp_vcf", META, REF_FASTA,
-             "--vcf", VCF, "--groups", "NA1", "NA2", "EU1",
+            [sys.executable, "-m", "krisp_tpu.cli.krisp_vcf", meta, ref,
+             "--vcf", vcf, "--groups", "G1", "G2", "G3",
              "--pos", "150000", "220000", "--engine", engine,
              "--out_csv", str(csv), "--out_align", str(align)],
             capture_output=True, text=True, timeout=600,
-            env={"PYTHONHASHSEED": "0", "PYTHONPATH": "/root/repo",
+            env={"PYTHONHASHSEED": "0", "PYTHONPATH": str(REPO),
                  "PATH": "/usr/bin:/bin", "COLUMNS": "80",
                  "JAX_PLATFORMS": "cpu"})
         assert proc.returncode == 0, proc.stderr[-2000:]
@@ -87,9 +103,11 @@ def test_vcf_device_engine_matches_host(tmp_path):
     dev_csv, dev_align = run("device")
     assert dev_csv == host_csv
     assert dev_align == host_align
+    assert len(host_csv.splitlines()) > 1
 
 
-def test_vcf_full_file_golden(tmp_path):
+def test_vcf_full_file_golden(tmp_path, bundled):
+    META, VCF = bundled
     """Whole-file scan (all 10k records, no --pos): the reference's
     default workload shape (krisp_vcf.py:1378-1388)."""
     csv = tmp_path / "out.csv"
@@ -99,14 +117,15 @@ def test_vcf_full_file_golden(tmp_path):
          "--vcf", VCF, "--groups", "NA1", "NA2", "EU1",
          "--out_csv", str(csv), "--out_align", str(align)],
         capture_output=True, text=True, timeout=900,
-        env={"PYTHONHASHSEED": "0", "PYTHONPATH": "/root/repo",
+        env={"PYTHONHASHSEED": "0", "PYTHONPATH": str(REPO),
              "PATH": "/usr/bin:/bin", "COLUMNS": "80"})
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert csv.read_text() == (GOLD / "vcf_full.csv").read_text()
     assert align.read_text() == (GOLD / "vcf_full.align.txt").read_text()
 
 
-def test_vcf_stdin_pipe_golden(tmp_path):
+def test_vcf_stdin_pipe_golden(tmp_path, bundled):
+    META, VCF = bundled
     """VCF streamed over stdin (no --vcf: the reference's default source,
     krisp_vcf.py:928-929) must produce the whole-file output byte-for-
     byte — the reference oracle's stdin run equals its file run."""
@@ -120,14 +139,15 @@ def test_vcf_stdin_pipe_golden(tmp_path):
          "--groups", "NA1", "NA2", "EU1",
          "--out_csv", str(csv), "--out_align", str(align)],
         input=vcf_text, capture_output=True, timeout=900,
-        env={"PYTHONHASHSEED": "0", "PYTHONPATH": "/root/repo",
+        env={"PYTHONHASHSEED": "0", "PYTHONPATH": str(REPO),
              "PATH": "/usr/bin:/bin", "COLUMNS": "80"})
     assert proc.returncode == 0, proc.stderr[-2000:].decode()
     assert csv.read_text() == (GOLD / "vcf_full.csv").read_text()
     assert align.read_text() == (GOLD / "vcf_full.align.txt").read_text()
 
 
-def test_vcf_chroms_golden(tmp_path):
+def test_vcf_chroms_golden(tmp_path, bundled):
+    META, VCF = bundled
     """--chroms contig selection combined with --pos — byte parity
     against the reference oracle."""
     csv = tmp_path / "out.csv"
@@ -138,7 +158,7 @@ def test_vcf_chroms_golden(tmp_path):
          "--chroms", "Phyram_PR-102_s0001", "--pos", "260000", "400000",
          "--out_csv", str(csv), "--out_align", str(align)],
         capture_output=True, text=True, timeout=600,
-        env={"PYTHONHASHSEED": "0", "PYTHONPATH": "/root/repo",
+        env={"PYTHONHASHSEED": "0", "PYTHONPATH": str(REPO),
              "PATH": "/usr/bin:/bin", "COLUMNS": "80"})
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert csv.read_text() == (GOLD / "vcf_chroms_260k_400k.csv").read_text()
@@ -146,7 +166,8 @@ def test_vcf_chroms_golden(tmp_path):
         (GOLD / "vcf_chroms_260k_400k.align.txt").read_text()
 
 
-def test_vcf_custom_knobs_golden(tmp_path):
+def test_vcf_custom_knobs_golden(tmp_path, bundled):
+    META, VCF = bundled
     """Non-default geometry/quality knobs (README.md:414-417 style) —
     byte parity against the reference oracle."""
     csv = tmp_path / "out.csv"
@@ -159,7 +180,7 @@ def test_vcf_custom_knobs_golden(tmp_path):
          "--var_location", "5", "16",
          "--out_csv", str(csv), "--out_align", str(align)],
         capture_output=True, text=True, timeout=600,
-        env={"PYTHONHASHSEED": "0", "PYTHONPATH": "/root/repo",
+        env={"PYTHONHASHSEED": "0", "PYTHONPATH": str(REPO),
              "PATH": "/usr/bin:/bin", "COLUMNS": "80"})
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert csv.read_text() == (GOLD / "vcf_custom_knobs.csv").read_text()

@@ -1,24 +1,36 @@
 """kstream parity tests: our KStream vs. the reference implementation run
 directly (the reference kstream module is pure stdlib, so it can serve as a
-live oracle)."""
+live oracle), and the fast-path engines vs. our exact string pipeline
+(KStream), which those reference comparisons pin."""
 
 import subprocess
 import sys
 
 import pytest
 
+from conftest import REPO
 from krisp_tpu.kstream import KStream, external_sort, sort_key_for_cols
 
-REF_ENV = {"PYTHONPATH": "/root/reference/src"}
 
-
-def run_reference(args, stdin_text):
+def run_reference(reference_dir, args, stdin_text):
     proc = subprocess.run(
         [sys.executable, "-m", "krisp.kstream.kstream", *args],
         input=stdin_text, capture_output=True, text=True,
-        env={**REF_ENV, "PATH": "/usr/bin:/bin"})
+        env={"PYTHONPATH": f"{reference_dir}/src", "PATH": "/usr/bin:/bin"})
     assert proc.returncode == 0, proc.stderr
     return proc.stdout.splitlines()
+
+
+def string_pipeline(args, stdin_text, tmp_path):
+    """The exact string pipeline's output lines for ``args``."""
+    oracle_dir = tmp_path / "oracle"
+    oracle_dir.mkdir(exist_ok=True)
+    return run_ours(args, stdin_text, oracle_dir)
+
+
+def _cli_env(**extra):
+    return {"PYTHONPATH": str(REPO), "PATH": "/usr/bin:/bin",
+            "JAX_PLATFORMS": "cpu", **extra}
 
 
 def run_ours(args, stdin_text, tmp_path):
@@ -63,13 +75,15 @@ CASES = [
 
 
 @pytest.mark.parametrize("args", CASES, ids=[" ".join(c) or "plain" for c in CASES])
-def test_kstream_matches_reference(args, tmp_path):
-    assert run_ours(args, FASTA, tmp_path) == run_reference(args, FASTA)
+def test_kstream_matches_reference(args, tmp_path, reference_dir):
+    assert run_ours(args, FASTA, tmp_path) == \
+        run_reference(reference_dir, args, FASTA)
 
 
-def test_kstream_rna_roundtrip(tmp_path):
+def test_kstream_rna_roundtrip(tmp_path, reference_dir):
     args = ["--kmers", "4", "--canonicals", "--sort"]
-    assert run_ours(args, RNA, tmp_path) == run_reference(args, RNA)
+    assert run_ours(args, RNA, tmp_path) == \
+        run_reference(reference_dir, args, RNA)
 
 
 def test_external_sort_spills_to_disk():
@@ -93,7 +107,7 @@ def test_sort_cols_matches_gnu_sort():
     assert got == want
 
 
-def test_write_matches_reference(tmp_path):
+def test_write_matches_reference(tmp_path, reference_dir):
     """KStream.write: file contents + returned count parity."""
     fasta = tmp_path / "in.fa"
     fasta.write_text(FASTA)
@@ -103,7 +117,7 @@ def test_write_matches_reference(tmp_path):
 
     import subprocess, sys
     script = (
-        "import sys; sys.path.insert(0, '/root/reference/src')\n"
+        f"import sys; sys.path.insert(0, {str(reference_dir / 'src')!r})\n"
         "from krisp.kstream.kstream import kstream\n"
         f"ks = kstream({str(fasta)!r}, kmers=6, disallow='Nn', sort=True,"
         " complements=True)\n"
@@ -126,7 +140,7 @@ def test_write_matches_reference(tmp_path):
 @pytest.mark.parametrize("engine", ["host", "device"])
 def test_device_fast_path_matches_reference(flags, engine, tmp_path):
     """Both fast-path engines in the kstream CLI emit byte-identical
-    output."""
+    output to the string pipeline."""
     fasta = tmp_path / "in.fa"
     fasta.write_text(">a\nACGTNACGGTTACA\nacgtACGT\n>b\nGGGTTTACACGTN\n")
     out = tmp_path / "ours.txt"
@@ -134,10 +148,9 @@ def test_device_fast_path_matches_reference(flags, engine, tmp_path):
         [sys.executable, "-m", "krisp_tpu.cli.kstream", str(fasta), *flags,
          "--engine", engine, "--output", str(out)],
         capture_output=True, text=True,
-        env={"PYTHONPATH": "/root/repo", "PATH": "/usr/bin:/bin",
-             "JAX_PLATFORMS": "cpu"})
+        env=_cli_env())
     assert proc.returncode == 0, proc.stderr
-    want = run_reference(flags, fasta.read_text())
+    want = string_pipeline(flags, fasta.read_text(), tmp_path)
     assert out.read_text().splitlines() == want
 
 
@@ -158,17 +171,16 @@ def test_device_path_count_layouts(k, body, tmp_path):
         [sys.executable, "-m", "krisp_tpu.cli.kstream", str(fasta), *flags,
          "--output", str(out)],
         capture_output=True, text=True,
-        env={"PYTHONPATH": "/root/repo", "PATH": "/usr/bin:/bin",
-             "JAX_PLATFORMS": "cpu"})
+        env=_cli_env())
     assert proc.returncode == 0, proc.stderr
-    want = run_reference(flags, fasta.read_text())
+    want = string_pipeline(flags, fasta.read_text(), tmp_path)
     assert out.read_text().splitlines() == want
 
 
 def fuzz_kstream_point(seed, tmp_path):
     """One randomized kstream parity point: random FASTA + random eligible
-    flag set, byte parity against the live reference through the device
-    fast path.  Random k sweeps the word-count/spare-bit space of the
+    flag set, byte parity against the exact string pipeline through the
+    device fast path.  Random k sweeps the word-count/spare-bit space of the
     embedded-count pull layout.  Shared with tools/fuzz_campaign.py."""
     import numpy as np
     rng = np.random.default_rng(seed)
@@ -201,7 +213,7 @@ def fuzz_kstream_point(seed, tmp_path):
     elif soft == "map":
         flags.append("--map-softmask")
     # v2 shape space (r5): split columns / sort columns / unsorted /
-    # allow — all still byte-compared against the live reference
+    # allow — all still byte-compared against the string pipeline
     shape = int(rng.integers(0, 4))
     if shape == 1:
         n_cuts = int(rng.integers(1, 3))
@@ -223,10 +235,9 @@ def fuzz_kstream_point(seed, tmp_path):
         [sys.executable, "-m", "krisp_tpu.cli.kstream", str(fasta), *flags,
          "--output", str(out)],
         capture_output=True, text=True,
-        env={"PYTHONPATH": "/root/repo", "PATH": "/usr/bin:/bin",
-             "JAX_PLATFORMS": "cpu"})
+        env=_cli_env())
     assert proc.returncode == 0, proc.stderr
-    want = run_reference(flags, fasta.read_text())
+    want = string_pipeline(flags, fasta.read_text(), tmp_path)
     assert out.read_text().splitlines() == want
 
 
@@ -258,12 +269,10 @@ def test_segmented_device_path_parity(flags, tmp_path):
         [sys.executable, "-m", "krisp_tpu.cli.kstream", str(fasta), *flags,
          "--output", str(out)],
         capture_output=True, text=True,
-        env={"PYTHONPATH": "/root/repo", "PATH": "/usr/bin:/bin",
-             "JAX_PLATFORMS": "cpu",
-             # ~5 segments for this input
-             "KRISP_TPU_HBM_BUDGET": "100000"})
+        # ~5 segments for this input
+        env=_cli_env(KRISP_TPU_HBM_BUDGET="100000"))
     assert proc.returncode == 0, proc.stderr
-    want = run_reference(flags, fasta.read_text())
+    want = string_pipeline(flags, fasta.read_text(), tmp_path)
     assert out.read_text().splitlines() == want
 
 
@@ -331,21 +340,21 @@ def test_device_path_falls_back_on_iupac(tmp_path):
         [sys.executable, "-m", "krisp_tpu.cli.kstream", str(fasta), *flags,
          "--output", str(out)],
         capture_output=True, text=True,
-        env={"PYTHONPATH": "/root/repo", "PATH": "/usr/bin:/bin",
-             "JAX_PLATFORMS": "cpu"})
+        env=_cli_env())
     assert proc.returncode == 0, proc.stderr
-    want = run_reference(flags, fasta.read_text())
+    want = string_pipeline(flags, fasta.read_text(), tmp_path)
     assert out.read_text().splitlines() == want
 
 
-def test_parallel_mode_matches_reference(tmp_path):
+def test_parallel_mode_matches_reference(tmp_path, reference_dir):
     """--parallel 2 output parity (ordered imap; reference converges after
     sort, and unsorted parallel output is order-insensitive as a multiset)."""
     args = ["--kmers", "6", "--disallow", "Nn", "--sort", "--parallel", "2"]
-    assert run_ours(args, FASTA, tmp_path) == run_reference(args, FASTA)
+    assert run_ours(args, FASTA, tmp_path) == \
+        run_reference(reference_dir, args, FASTA)
     args2 = ["--kmers", "5", "--parallel", "2"]
     assert sorted(run_ours(args2, FASTA, tmp_path)) == \
-        sorted(run_reference(args2, FASTA))
+        sorted(run_reference(reference_dir, args2, FASTA))
 
 
 def test_parse_memory_spec():

@@ -18,10 +18,15 @@ def test_native_reader_matches_python(tmp_path):
     np.testing.assert_array_equal(got, want)
 
 
-def test_native_reader_gz():
+def test_native_reader_gz(tmp_path, planted_fasta):
+    import gzip
+
     if get_lib() is None:
         pytest.skip("native toolchain unavailable")
-    path = "/root/reference/test_data/krisp_fasta/ingroup0.fasta.gz"
+    path = str(tmp_path / "ingroup0.fasta.gz")
+    with open(planted_fasta()[0][0], "rb") as src, \
+            gzip.open(path, "wb") as dst:
+        dst.write(src.read())
     want, _ = read_fasta_buffer(path)
     got = read_fasta_buffer_native(path)
     np.testing.assert_array_equal(got, want)

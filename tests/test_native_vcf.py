@@ -5,15 +5,16 @@ import pytest
 from krisp_tpu.io.native_vcf import read_columnar, get_lib
 from krisp_tpu.vcf.parser import VcfReader
 
-VCF = "/root/reference/test_data/krisp_vcf/variants.vcf.gz"
+from conftest import SYNTH_VCF_SHAPE
 
 
-def test_native_vcf_matches_python_parser():
+def test_native_vcf_matches_python_parser(synth_vcf):
     if get_lib() is None:
         pytest.skip("native toolchain unavailable")
-    col = read_columnar(VCF, max_alleles=8)
+    vcf = synth_vcf[2]
+    col = read_columnar(vcf, max_alleles=8)
     assert col is not None
-    reader = VcfReader(VCF)
+    reader = VcfReader(vcf)
     assert col.samples == reader.samples
     n_checked = 0
     for v, var in enumerate(reader):
@@ -33,15 +34,13 @@ def test_native_vcf_matches_python_parser():
             assert col.ad[v, si].tolist() == want_ad
         n_checked += 1
     assert n_checked == 500
-    assert col.n_records == 10000
+    assert col.n_records == SYNTH_VCF_SHAPE[0]
 
 
 def test_columnar_slice_matches_whole_file_rows(tmp_path):
     """Per-contig ranged loads (memory bounded by the contig block) must
     equal the corresponding rows of the whole-file columnar parse."""
-    import sys
     import numpy as np
-    sys.path.insert(0, "/root/repo/tests")
     from test_vcf_multicontig import synth_inputs
     from krisp_tpu.vcf.parser import VcfOffsetIndex
 
@@ -71,15 +70,14 @@ def test_columnar_slice_matches_whole_file_rows(tmp_path):
         idx.cleanup()
 
 
-def test_ranged_read_empty_and_probe(tmp_path):
+def test_ranged_read_empty_and_probe(tmp_path, synth_vcf):
     """A ranged parse yielding zero records returns an empty columnar (not
     a crash on NULL vector data), and native_ok probes one record."""
-    import numpy as np
     from krisp_tpu.vcf.parser import VcfOffsetIndex
 
     if get_lib() is None:
         pytest.skip("native VCF tokenizer unavailable")
-    idx = VcfOffsetIndex(VCF)
+    idx = VcfOffsetIndex(synth_vcf[2])
     try:
         assert idx.native_ok() and idx.native_ok()  # cached second call
         huge = 1 << 40

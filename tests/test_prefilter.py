@@ -175,19 +175,18 @@ def test_per_genome_pipelined_prefilter_overflow_reporting():
     assert int(packed[-1, 1]) > 64
 
 
-def test_run_pipeline_amplicon_uses_prefilter_and_matches_golden(tmp_path):
+def test_run_pipeline_amplicon_uses_prefilter_and_matches_golden(
+        tmp_path, planted_fasta):
     """CLI-level: amplicon mode through run_pipeline (prefilter-gated)
-    still reproduces the golden CSV."""
-    import glob
-    from pathlib import Path
+    yields exactly the planted diagnostic windows, both strands."""
     from krisp_tpu.cli.krisp_fasta import main as krisp_fasta_main
 
-    DATA = "/root/reference/test_data/krisp_fasta"
-    ingroup = sorted(glob.glob(f"{DATA}/ingroup*.fasta.gz"))
-    outgroup = sorted(glob.glob(f"{DATA}/outgroup*.fasta.gz"))
-    gold = Path(__file__).parent / "golden"
+    ingroup, outgroup, expected = planted_fasta((30, 40, 30))
     csv = tmp_path / "out.csv"
     krisp_fasta_main(ingroup + ["--outgroup"] + outgroup +
                      ["--conserved", "30", "--amplicon", "100",
                       "--out_csv", str(csv)])
-    assert csv.read_text() == (gold / "amplicon_100.csv").read_text()
+    lines = csv.read_text().splitlines()
+    assert lines[0] == "left_seq,diag_seq,right_seq"
+    assert {tuple(r.split(",")) for r in lines[1:]} == expected
+    assert len(lines) - 1 == len(expected) > 0

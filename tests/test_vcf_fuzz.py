@@ -12,6 +12,8 @@ import sys
 import numpy as np
 import pytest
 
+from conftest import REPO, ref_pythonpath
+
 GROUPS = {"EU1": ["e1", "e2", "e3", "e4"], "NA1": ["n1", "n2", "n3", "n4"]}
 SAMPLES = [s for ss in GROUPS.values() for s in ss]
 
@@ -99,15 +101,15 @@ def run_cli(module, pythonpath, meta, ref, vcf, out_dir, tag):
 
 
 @pytest.mark.parametrize("seed", [11, 12, 13, 14, 15])
-def test_fuzz_vcf_parity(tmp_path, seed):
+def test_fuzz_vcf_parity(tmp_path, seed, reference_dir):
     meta, ref, vcf = synth_fuzz_inputs(tmp_path, seed)
     open(vcf + ".tbi", "w").close()
     ref_csv, ref_align, ref_err = run_cli(
         "krisp.krisp_vcf.krisp_vcf",
-        "/root/repo/tools/refstubs:/root/reference/src:/root/repo",
+        ref_pythonpath(reference_dir),
         meta, ref, vcf, str(tmp_path), "ref")
     our_csv, our_align, our_err = run_cli(
-        "krisp_tpu.cli.krisp_vcf", "/root/repo",
+        "krisp_tpu.cli.krisp_vcf", str(REPO),
         meta, ref, vcf, str(tmp_path), "ours")
     assert our_csv == ref_csv
     assert our_align == ref_align
@@ -157,15 +159,15 @@ def synth_dense_inputs(tmp_path, seed):
 
 
 @pytest.mark.parametrize("seed", [700, 701])
-def test_dense_overlapping_indels_parity(tmp_path, seed):
+def test_dense_overlapping_indels_parity(tmp_path, seed, reference_dir):
     meta, ref, vcf = synth_dense_inputs(tmp_path, seed)
     open(vcf + ".tbi", "w").close()
     ref_csv, ref_align, _ = run_cli(
         "krisp.krisp_vcf.krisp_vcf",
-        "/root/repo/tools/refstubs:/root/reference/src:/root/repo",
+        ref_pythonpath(reference_dir),
         meta, ref, vcf, str(tmp_path), "ref")
     our_csv, our_align, _ = run_cli(
-        "krisp_tpu.cli.krisp_vcf", "/root/repo",
+        "krisp_tpu.cli.krisp_vcf", str(REPO),
         meta, ref, vcf, str(tmp_path), "ours")
     assert our_csv == ref_csv
     assert our_align == ref_align
@@ -217,7 +219,7 @@ def _run_cli_flags(module, pythonpath, meta, ref, vcf, out_dir, tag, flags):
 
 
 @pytest.mark.parametrize("seed", [400, 406, 409, 417])
-def test_fuzz_vcf_flag_surface(tmp_path, seed):
+def test_fuzz_vcf_flag_surface(tmp_path, seed, reference_dir):
     """Differential fuzz across the FLAG surface (thresholds, geometry,
     --pos windows), not just defaults — byte parity per (input, flags)
     point.  Seeds picked from a 24-point sweep for flag-set diversity."""
@@ -227,9 +229,9 @@ def test_fuzz_vcf_flag_surface(tmp_path, seed):
     flags = _random_flags(rng)
     ref_out = _run_cli_flags(
         "krisp.krisp_vcf.krisp_vcf",
-        "/root/repo/tools/refstubs:/root/reference/src:/root/repo",
+        ref_pythonpath(reference_dir),
         meta, ref, vcf, str(tmp_path), "ref", flags)
     our_out = _run_cli_flags(
-        "krisp_tpu.cli.krisp_vcf", "/root/repo",
+        "krisp_tpu.cli.krisp_vcf", str(REPO),
         meta, ref, vcf, str(tmp_path), "ours", flags)
     assert our_out == ref_out, flags

@@ -8,6 +8,8 @@ import subprocess
 import sys
 
 import numpy as np
+
+from conftest import REPO, ref_pythonpath
 GROUPS = {"EU1": ["e1", "e2", "e3"], "NA1": ["n1", "n2", "n3"],
           "NA2": ["m1", "m2", "m3"]}
 SAMPLES = [s for ss in GROUPS.values() for s in ss]
@@ -68,16 +70,16 @@ def run_cli(module_env, meta, ref, vcf, out_dir, tag):
     return open(csv).read(), open(align).read()
 
 
-def test_multicontig_parity(tmp_path):
+def test_multicontig_parity(tmp_path, reference_dir):
     meta, ref, vcf = synth_inputs(tmp_path)
     # reference needs a writable dir + index marker (tests/golden/README.md)
     open(vcf + ".tbi", "w").close()
     ref_csv, ref_align = run_cli(
         ("krisp.krisp_vcf.krisp_vcf",
-         "/root/repo/tools/refstubs:/root/reference/src:/root/repo"),
+         ref_pythonpath(reference_dir)),
         meta, ref, vcf, str(tmp_path), "ref")
     our_csv, our_align = run_cli(
-        ("krisp_tpu.cli.krisp_vcf", "/root/repo"),
+        ("krisp_tpu.cli.krisp_vcf", str(REPO)),
         meta, ref, vcf, str(tmp_path), "ours")
     assert our_csv == ref_csv
     assert our_align == ref_align
@@ -85,7 +87,7 @@ def test_multicontig_parity(tmp_path):
     assert "ctgA:" in our_csv and "ctgB:" in our_csv
 
 
-def test_chroms_subset_parity(tmp_path):
+def test_chroms_subset_parity(tmp_path, reference_dir):
     """--chroms restricts the scan to named contigs (parity with the
     reference's contig_subset path)."""
     meta, ref, vcf = synth_inputs(tmp_path)
@@ -105,8 +107,8 @@ def test_chroms_subset_parity(tmp_path):
 
     ref_csv = run_with_chroms(
         "krisp.krisp_vcf.krisp_vcf",
-        "/root/repo/tools/refstubs:/root/reference/src:/root/repo", "refc")
-    our_csv = run_with_chroms("krisp_tpu.cli.krisp_vcf", "/root/repo", "ourc")
+        ref_pythonpath(reference_dir), "refc")
+    our_csv = run_with_chroms("krisp_tpu.cli.krisp_vcf", str(REPO), "ourc")
     assert our_csv == ref_csv
     assert "ctgB" in our_csv and "ctgA" not in our_csv
 
@@ -151,7 +153,7 @@ def test_multicontig_device_engine_cli_parity(tmp_path):
              "--vcf", vcf, "--groups", "EU1", "NA1", "NA2",
              "--engine", engine, "--out_csv", csv],
             capture_output=True, text=True, timeout=600,
-            env={"PYTHONHASHSEED": "0", "PYTHONPATH": "/root/repo",
+            env={"PYTHONHASHSEED": "0", "PYTHONPATH": str(REPO),
                  "PATH": "/usr/bin:/bin", "COLUMNS": "80"})
         assert proc.returncode == 0, proc.stderr[-2000:]
         return open(csv).read()

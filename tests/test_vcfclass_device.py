@@ -1,5 +1,5 @@
-"""Device classification kernel vs. the exact host engine on the bundled
-10k-variant VCF — every variant, every group, bit-for-bit agreement."""
+"""Device classification kernel vs. the exact host engine on a seeded
+cohort VCF — every variant, every group, bit-for-bit agreement."""
 
 import itertools
 
@@ -9,18 +9,17 @@ from krisp_tpu.vcf.batch import build_batch
 from krisp_tpu.vcf.classify import ClassifiedVariant, parse_group_data
 from krisp_tpu.vcf.parser import VcfReader
 
-VCF = "/root/reference/test_data/krisp_vcf/variants.vcf.gz"
-META = "/root/reference/test_data/krisp_vcf/metadata.csv"
-
 KW = dict(min_samples=3, min_reads=10, min_geno_qual=40, min_freq=0.1,
           min_map_qual=40, min_var_qual=10, min_samp_prop=0.9)
 
 N_CHECK = 1500  # variants to compare (full host pass over 10k is slow-ish)
+GROUPS = ["G1", "G2", "G3"]
 
 
-def test_device_matches_host_engine():
-    groups = parse_group_data(META, groups=["NA1", "NA2", "EU1"])
-    variants = list(itertools.islice(VcfReader(VCF), N_CHECK))
+def test_device_matches_host_engine(synth_vcf):
+    meta, _, vcf = synth_vcf
+    groups = parse_group_data(meta, groups=GROUPS)
+    variants = list(itertools.islice(VcfReader(vcf), N_CHECK))
     arrays, group_names, _ = build_batch(variants, groups)
     out = classify_batch(n_groups=len(group_names), **arrays, **KW)
 
@@ -57,13 +56,14 @@ def test_device_matches_host_engine():
     assert not mismatches, mismatches[:10]
 
 
-def test_packed_output_matches_unpacked():
+def test_packed_output_matches_unpacked(synth_vcf):
     """classify_batch_packed is the same kernel with a one-array epilogue:
     unpacking its columns must reproduce classify_batch exactly."""
     from krisp_tpu.ops.vcfclass import classify_batch_packed
 
-    groups = parse_group_data(META, groups=["NA1", "NA2", "EU1"])
-    variants = list(itertools.islice(VcfReader(VCF), 400))
+    meta, _, vcf = synth_vcf
+    groups = parse_group_data(meta, groups=GROUPS)
+    variants = list(itertools.islice(VcfReader(vcf), 400))
     arrays, group_names, _ = build_batch(variants, groups)
     G = len(group_names)
     out = classify_batch(n_groups=G, **arrays, **KW)
@@ -81,17 +81,17 @@ def test_packed_output_matches_unpacked():
                                   np.asarray(out["allele_counts"]))
 
 
-def test_numpy_mirror_matches_jax_kernel():
-    """classify_batch_packed_numpy (the CPU-only scan path, used to dodge
-    this VM's XLA-CPU dispatch collapse — tools/
-    probe_cpu_dispatch_degradation.py) is bit-identical to the jax kernel:
-    on the real 10k-variant VCF slice AND on adversarial random batches
-    (missing data, multiallelics, NaN-sentinel quals, empty groups)."""
+def test_numpy_mirror_matches_jax_kernel(synth_vcf):
+    """classify_batch_packed_numpy (the scan's path when there is no
+    accelerator) is bit-identical to the jax kernel: on a seeded cohort
+    slice AND on adversarial random batches (missing data, multiallelics,
+    NaN-sentinel quals, empty groups)."""
     from krisp_tpu.ops.vcfclass import (classify_batch_packed,
                                         classify_batch_packed_numpy)
 
-    groups = parse_group_data(META, groups=["NA1", "NA2", "EU1"])
-    variants = list(itertools.islice(VcfReader(VCF), 400))
+    meta, _, vcf = synth_vcf
+    groups = parse_group_data(meta, groups=GROUPS)
+    variants = list(itertools.islice(VcfReader(vcf), 400))
     arrays, group_names, _ = build_batch(variants, groups)
     G = len(group_names)
     want = np.asarray(classify_batch_packed(n_groups=G, **arrays, **KW))

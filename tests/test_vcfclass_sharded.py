@@ -14,26 +14,24 @@ from krisp_tpu.vcf.batch import build_batch
 from krisp_tpu.vcf.classify import parse_group_data
 from krisp_tpu.vcf.parser import VcfReader
 
-VCF = "/root/reference/test_data/krisp_vcf/variants.vcf.gz"
-META = "/root/reference/test_data/krisp_vcf/metadata.csv"
-
 KW = dict(min_samples=3, min_reads=10, min_geno_qual=40, min_freq=0.1,
           min_map_qual=40, min_var_qual=10, min_samp_prop=0.9)
 
 
-def _inputs(n_variants=301):
-    """Real VCF slice — 301 variants (not divisible by any mesh size) and
-    18 samples (not divisible by 4 or 8), so both shardings exercise their
-    padding."""
-    groups = parse_group_data(META, groups=["NA1", "NA2", "EU1"])
-    variants = list(itertools.islice(VcfReader(VCF), n_variants))
+def _inputs(meta, vcf, n_variants=301):
+    """Synthetic cohort slice — 301 variants (not divisible by any mesh
+    size) and 20 samples (not divisible by 8), so both shardings exercise
+    their padding."""
+    groups = parse_group_data(meta, groups=["G1", "G2", "G3"])
+    variants = list(itertools.islice(VcfReader(vcf), n_variants))
     arrays, group_names, _ = build_batch(variants, groups)
     return arrays, group_names
 
 
 @pytest.fixture(scope="module")
-def baseline():
-    arrays, group_names = _inputs()
+def baseline(synth_vcf):
+    meta, _, vcf = synth_vcf
+    arrays, group_names = _inputs(meta, vcf)
     ref = np.asarray(classify_batch_packed(
         n_groups=len(group_names), **arrays, **KW))
     return arrays, group_names, ref
@@ -51,7 +49,7 @@ def test_sharded_bit_identical(baseline, n_devices, shard):
 
 
 def test_sample_shard_odd_cohort(baseline):
-    """A cohort of 18 over 8 devices pads 6 ghost samples; they must not
+    """A cohort of 20 over 8 devices pads 4 ghost samples; they must not
     leak into any count."""
     arrays, group_names, ref = baseline
     assert arrays["dp"].shape[1] % 8 != 0
@@ -62,7 +60,7 @@ def test_sample_shard_odd_cohort(baseline):
 
 
 @pytest.mark.parametrize("n_devices", ["2", "8"])
-def test_fastscan_typed_stream_sharded(n_devices, monkeypatch):
+def test_fastscan_typed_stream_sharded(n_devices, monkeypatch, synth_vcf):
     """The full device scan (classification -> window prefilter -> cascade
     tail) yields an identical typed-window stream when its batches run
     sharded over a mesh (KRISP_TPU_DEVICES governs _scan_mesh)."""
@@ -71,14 +69,15 @@ def test_fastscan_typed_stream_sharded(n_devices, monkeypatch):
     from krisp_tpu.vcf.fastscan import chunk_rows, find_diag_region_fast
     from krisp_tpu.vcf.parser import VcfOffsetIndex
 
-    idx = VcfOffsetIndex(VCF)
+    meta, ref, vcf = synth_vcf
+    idx = VcfOffsetIndex(vcf)
     try:
         col = idx.columnar()
         if col is None:
             pytest.skip("native VCF tokenizer unavailable")
-        groups = parse_group_data(META, groups=["NA1", "NA2", "EU1"],
+        groups = parse_group_data(meta, groups=["G1", "G2", "G3"],
                                   min_samples=3)
-        reference = parse_reference("tests/data/test_reference.fasta.gz")
+        reference = parse_reference(ref)
         chunk = {"contig": idx.contigs[0][0], "start": 150000, "end": 220000}
         rows = chunk_rows(col, chunk)
 

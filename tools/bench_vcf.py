@@ -6,7 +6,7 @@ Compares:
     engine via tools/refstubs — htslib is unavailable here, so this isolates
     the scan machinery: classification, windowing, cascade)
   - krisp_tpu host engine
-  - krisp_tpu --engine device (TPU-batched classification)
+  - krisp_tpu --engine device (device-batched classification)
 
 Usage: python tools/bench_vcf.py
 """

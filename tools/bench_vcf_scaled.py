@@ -29,8 +29,9 @@ REPO = Path(__file__).resolve().parent.parent
 CACHE = REPO / "tools" / ".bench_data"
 
 
-def synth_scaled(n_records, n_samples, seed=0, n_contigs=1):
-    """Generate (meta, ref_fasta, vcf_gz) under CACHE, reusing if present.
+def synth_scaled(n_records, n_samples, seed=0, n_contigs=1, out_dir=None):
+    """Generate (meta, ref_fasta, vcf_gz) under ``out_dir`` (default
+    CACHE), reusing if present.
 
     Scenario mix tuned for realistic scan behavior: mostly conserved
     reference calls, a few percent group-specific fixed differences
@@ -42,7 +43,7 @@ def synth_scaled(n_records, n_samples, seed=0, n_contigs=1):
     group) for survivor verification."""
     tag = f"r{n_records}_s{n_samples}_v3_{seed}" \
         + (f"_c{n_contigs}" if n_contigs > 1 else "")
-    out = CACHE / tag
+    out = Path(out_dir or CACHE) / tag
     meta = out / "meta.csv"
     ref_fa = out / "ref.fasta"
     vcf = out / "vars.vcf.gz"

@@ -17,6 +17,12 @@ README's revcomp pairs appear only in the symmetric 30/40/30 geometry,
 README.md:231-232).  Non-diagnostic sites survive intersection on both
 strands and must be dropped by the ingroup filter.
 
+Other geometries (``geom=(left, mid, right)``, e.g. the amplicon 30/40/30)
+plant a random mid of ``mid`` bases per site: the ingroup's and the
+outgroup's differ at every column at diagnostic sites, and all genomes
+share one mid at the others.  With symmetric flanks both strands of a
+diagnostic site survive (``expected_rows``).
+
 Usage: python tools/make_bigscale_fasta.py OUTDIR --size 100000000
 """
 
@@ -49,26 +55,72 @@ def write_fasta(path: str, seq: np.ndarray, record_bases: int = 10_000_000,
             body.tofile(fh)
 
 
+def planted_windows(n_sites: int, geom=GEOM, seed: int = 20260819):
+    """The planted site windows of ``make_genomes``: (ingroup, outgroup)
+    uint8 arrays [n_sites, sum(geom)] and the diagnostic-site mask.  The
+    spacer geometry's flanks are the first draw of the genome stream
+    (``make_genomes``); other geometries draw from a stream of their
+    own."""
+    left, mid, right = geom
+    diagnostic = np.arange(n_sites) % 2 == 0
+    if tuple(geom) == GEOM:
+        rng = np.random.default_rng(seed)
+        win = BASES[rng.integers(0, 4, size=(n_sites, L))]
+        out = win.copy()
+        win[:, left] = np.where(diagnostic, ord("A"), ord("G"))
+        out[:, left] = np.where(diagnostic, ord("C"), ord("G"))
+        return win, out, diagnostic
+    rng = np.random.default_rng([seed, left, mid, right])
+    length = left + mid + right
+    win = BASES[rng.integers(0, 4, size=(n_sites, length))]
+    out = win.copy()
+    # outgroup mid: every base shifted to another letter at diagnostic sites
+    codes = rng.integers(0, 4, size=(n_sites, mid))
+    shift = np.where(diagnostic[:, None], 1 + codes % 3, 0)
+    lut = {int(b): i for i, b in enumerate(BASES)}
+    mid_in = np.vectorize(lut.get)(win[:, left:left + mid])
+    out[:, left:left + mid] = BASES[(mid_in + shift) % 4]
+    return win, out, diagnostic
+
+
+def expected_rows(geom, win, diagnostic) -> set:
+    """CSV (left, diag, right) triples the planted diagnostic sites yield:
+    the forward window, and for symmetric flanks its reverse complement."""
+    left, mid, right = geom
+    comp = bytes.maketrans(b"ACGT", b"TGCA")
+    rows = set()
+    for w in win[diagnostic]:
+        s = w.tobytes()
+        rows.add((s[:left].decode(), s[left:left + mid].decode(),
+                  s[left + mid:].decode()))
+        if left == right:
+            r = s.translate(comp)[::-1]
+            rows.add((r[:left].decode(), r[left:left + mid].decode(),
+                      r[left + mid:].decode()))
+    return rows
+
+
 def make_genomes(outdir: str, size: int, n_ingroup: int = 2,
                  n_outgroup: int = 3, site_every: int = 1_000_000,
-                 seed: int = 20260819):
+                 seed: int = 20260819, geom=GEOM):
+    """Write the genomes; returns (paths, number of diagnostic sites)."""
     os.makedirs(outdir, exist_ok=True)
     rng = np.random.default_rng(seed)
     n_sites = size // site_every
-    # one shared flank per site, fixed across genomes
-    flanks = BASES[rng.integers(0, 4, size=(n_sites, L))]
+    length = sum(geom)
+    # one shared flank per site, fixed across genomes (the first draw of
+    # this stream, which planted_windows repeats for the spacer geometry)
+    rng.integers(0, 4, size=(n_sites, L))
     site_pos = (np.arange(n_sites) * site_every
-                + rng.integers(L, site_every - L, size=n_sites))
-    diagnostic = np.arange(n_sites) % 2 == 0
+                + rng.integers(length, site_every - length, size=n_sites))
+    win_in, win_out, diagnostic = planted_windows(n_sites, geom, seed)
     paths = []
     for g in range(n_ingroup + n_outgroup):
         ingroup = g < n_ingroup
         seq = BASES[rng.integers(0, 4, size=size)]
         for s in range(n_sites):
-            window = flanks[s].copy()
-            window[GEOM[0]] = (ord("A") if ingroup else ord("C")) \
-                if diagnostic[s] else ord("G")
-            seq[site_pos[s]:site_pos[s] + L] = window
+            window = win_in[s] if ingroup else win_out[s]
+            seq[site_pos[s]:site_pos[s] + length] = window
         name = (f"ingroup{g}" if ingroup else f"outgroup{g - n_ingroup}")
         path = os.path.join(outdir, f"{name}.fasta")
         write_fasta(path, seq)

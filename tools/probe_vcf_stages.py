@@ -2,9 +2,8 @@
 """Stage split of the scaled krisp_vcf device-engine scan (VERDICT r4 #3).
 
 Runs the 100k x 100 synthetic scan under cProfile and aggregates the
-flat profile into the pipeline's stage buckets, so BASELINE.md can carry
-a table saying where the time goes (the k-mer pipeline's probe_stages.py
-analog for the VCF vertical).
+flat profile into the pipeline's stage buckets, so PERF.md can carry
+a table saying where the host time goes.
 
 Usage: python tools/probe_vcf_stages.py [records] [samples]
 """
